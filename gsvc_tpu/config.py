@@ -40,6 +40,7 @@ class FrameConfig:
     # rasterizer
     backend: str = "auto"
     max_intersects: Optional[int] = None
+    interpret: bool = False  # tile kernel in the Pallas interpreter (tests)
 
     @property
     def tile_bounds(self) -> Tuple[int, int, int]:

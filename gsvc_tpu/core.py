@@ -5,7 +5,7 @@ The reference stores per-frame splat parameters as four nn.Parameters
 `_features_dc` [N,3] and `rgb_W` [N,1], and *reallocates* them when splats
 are pruned or added (GaussianSplats_Represent.py:109-128).
 
-TPU-native redesign: fixed-capacity buffers + an `alive` mask so every jitted
+Design: fixed-capacity buffers + an `alive` mask so every jitted
 computation keeps a static shape. Pruning clears mask bits; adding revives
 dead slots with fresh values. Dead slots are excluded from rendering by
 forcing their projected radius to zero (ops/projection.py) and excluded from

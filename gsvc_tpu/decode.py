@@ -35,7 +35,7 @@ import numpy as np
 
 
 def parse_args(argv):
-    p = argparse.ArgumentParser(description="GSVC-TPU frame decoder")
+    p = argparse.ArgumentParser(description="GSVC frame decoder")
     p.add_argument("--bitstream", type=str, required=True,
                    help="directory of frame_N.gsvc streams")
     p.add_argument("--height", type=int, required=True)
@@ -68,6 +68,9 @@ def _find_frames(bs_dir: Path):
 
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    from gsvc_tpu.platform import configure
+
+    configure()
     from gsvc_tpu.compress.bitstream import decode_frame, render_decoded
     from gsvc_tpu.config import FrameConfig
 
@@ -105,10 +108,13 @@ def main(argv=None) -> int:
         )
 
     png = not args.no_png
-    try:  # PIL is present in this image; degrade gracefully elsewhere
-        from PIL import Image
-    except ImportError:  # pragma: no cover
-        png = False
+    if png:
+        try:
+            from PIL import Image
+        except ImportError:  # pragma: no cover
+            print("PIL not installed: per-frame PNGs skipped "
+                  "(decoded.rgb is still written)")
+            png = False
 
     report = out_dir / "decode.txt"
     lines = []

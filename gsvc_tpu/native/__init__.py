@@ -2,8 +2,8 @@
 
 The analog of the reference's lazy CUDA extension loader
 (gsplat/gsplat/cuda/_backend.py:54-98 JIT path; gsplat/setup.py AOT path):
-tries a prebuilt shared library next to the sources, else compiles the C++
-once with g++ under a file lock, caching the .so in the package directory
+loads a library built earlier from these sources (never a tracked binary),
+else compiles the C++ once with g++ under a file lock, caching the .so in the package directory
 (falling back to a per-user temp dir when the package is read-only).
 Failure to build degrades gracefully: callers check `rans_lib() is None`
 and fall back to the numpy implementation in gsvc_tpu/compress/entropy.py.

@@ -1,6 +1,6 @@
 // Native rANS entropy codec for categorical symbol streams.
 //
-// C++ core of gsvc_tpu.compress.entropy — the TPU-native framework's
+// C++ core of gsvc_tpu.compress.entropy — this framework's
 // replacement for the reference's `constriction` Rust library
 // (reference quantize.py:152-180). Bit-identical to the numpy fallback in
 // gsvc_tpu/compress/entropy.py (same 64-bit state, 32-bit renormalization

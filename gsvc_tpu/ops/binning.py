@@ -6,31 +6,27 @@ Replaces the reference pipeline `compute_cumulative_intersects` +
 (forward.cu:100-136), sorts with torch.sort, and extracts bin edges with
 another kernel (forward.cu:141-163).
 
-TPU-native redesign:
+Design:
 - No custom kernel, no host sync. The reference's `.item()` sync
   (utils.py:117) disappears: a *static* intersection budget `max_intersects`
   replaces the dynamic allocation, and the dynamic total is carried as a
   traced scalar.
-- Pair expansion avoids vectorized binary search (jnp.searchsorted's
-  per-query scan lowers catastrophically on TPU): each splat scatters its
-  index at its exclusive start offset and an `associative_scan` maximum
-  forward-fills every intersection slot with its owning gaussian in O(I)
-  vector work (lax.cummax lowers to a quadratic loop at these lengths).
+- Pair expansion without a vectorized binary search: each splat scatters
+  its index at its exclusive start offset and an `associative_scan`
+  maximum forward-fills every intersection slot with its owning gaussian.
   The tile is decoded from the slot's rank inside the gaussian's tile bbox
   (row-major, matching forward.cu:118-133) with exact float32 div/mod.
 - Depth is constant 0 in this pipeline (foward2d.cu:67), so the reference's
   64-bit (tile, depth) key order reduces to (tile, gaussian) order; both
   fit one uint32 key (tile<<16 | gauss) whenever n < 65535 and the tile
   grid < 64k tiles (true up to 4K video), so ONE unstable single-array sort
-  replaces the reference's key/value radix sort — measured 4x cheaper than
-  the (key, value) lax.sort pair on v5e. Unique keys make the unstable sort
-  deterministic.
-- The sorted layout is the Pallas kernels' streaming layout DIRECTLY: each
-  tile-ROW of the grid ("superblock") is padded — by sentinel entries
-  injected into the sort — to a LANE_ALIGN-lane boundary, so the rasterizer
-  can DMA aligned LANE_ALIGN-lane chunks per tile row with a dynamic trip
-  count (ops/rasterize_pallas.py). Per-tile starts stay exact (unaligned)
-  for the CSR consumers (ops/rasterize_binned.py, tests).
+  replaces the reference's key/value radix sort. Unique keys make the
+  unstable sort deterministic.
+- Each tile-ROW of the grid ("superblock") is padded — by sentinel entries
+  injected into the sort — to a LANE_ALIGN-lane boundary. Per-tile starts
+  stay exact (unaligned) for the rasterizers (ops/rasterize_tile.py,
+  ops/rasterize_binned.py). Nothing reads the alignment any more; it is
+  kept until the padding is taken out.
 
 If the budget overflows, the tail (highest gaussian indices) is dropped and
 `overflow` reports how many intersections were lost — the reference silently
@@ -48,13 +44,7 @@ import jax.numpy as jnp
 from gsvc_tpu.ops.projection import _tile_bbox
 
 
-# Lanes per rasterizer DMA chunk: every tile-row superblock is padded (with
-# sentinel entries injected into the sort) to a multiple of LANE_ALIGN, so
-# per-row dynamic chunk DMAs stay aligned (see ops/rasterize_pallas.py).
-# 128 (not CHUNK=256): the rasterizer's overrun logic only needs chunk
-# STARTS aligned to LANE_ALIGN, and halving the alignment halves the
-# ~(LANE_ALIGN/2 * tile_rows) wasted pad lanes per frame (sorted, packed,
-# DMA'd, and evaluated as dead alpha).
+# Row-superblock alignment of the sorted layout (see the module docstring).
 LANE_ALIGN = 128
 
 
@@ -76,21 +66,6 @@ class BinnedSplats(NamedTuple):
     tile_counts: [T] int32 — REAL intersections of each tile (pre-cap).
     num_intersects: [] int32 traced total (after budget clamp).
     overflow: [] int32 — intersections dropped by the budget (0 normally).
-    sorted_keys: [S] uint32 RAW sorted (tile << 16 | gauss) keys (pre-cap:
-      beyond-cap lanes keep their real gaussian id here) — present on the
-      16-bit fast path, None otherwise. Rotating each key by 16 bits gives
-      unique (gauss << 16 | tile) keys whose sort groups lanes by gaussian
-      in exactly the expansion order; the rasterizer backward uses this for
-      a sort+gather+segmented-scan gradient reduction instead of a serial
-      scatter-add segment_sum (ops/rasterize_pallas._reduce_lane_grads).
-    gauss_slot_start: [N+1] int32 — exclusive prefix of kept per-gaussian
-      intersection counts: gaussian g owns slots
-      [gauss_slot_start[g], gauss_slot_start[g+1]) of the gauss-sorted
-      order (zero-width for empty/budget-dropped gaussians).
-    bbox_pack: [N] int32 (bbox_w << 16 | tmin_y << 8 | tmin_x) — each
-      gaussian's tile bbox, packed; lets a lane recover its expansion slot
-      elementwise: j = (ty - tmin_y) * bbox_w + (tx - tmin_x),
-      slot = gauss_slot_start[g] + j.
 
     S = LANE_ALIGN-aligned static capacity (budget + per-row padding slack).
     """
@@ -102,46 +77,15 @@ class BinnedSplats(NamedTuple):
     tile_counts: jax.Array
     num_intersects: jax.Array
     overflow: jax.Array
-    sorted_keys: jax.Array | None
-    gauss_slot_start: jax.Array
-    bbox_pack: jax.Array
-
-
-# Force the Pallas scan kernels in binning on/off; None = auto (TPU, or
-# interpreter mode when fill_pallas.INTERPRET is set by tests).
-PALLAS_FILL = None
-
-
-def _use_pallas_fill() -> bool:
-    if PALLAS_FILL is not None:
-        return bool(PALLAS_FILL)
-    from gsvc_tpu.ops import fill_pallas
-
-    if fill_pallas.INTERPRET:
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
 
 
 def static_capacity(max_intersects: int, tile_bounds: Tuple[int, int, int]) -> int:
-    """Static lane capacity S of the sorted layout for a given budget.
-
-    Row superblocks are LANE_ALIGN-aligned but the rasterizer DMAs
-    chunk-lane slices (up to MAX_CHUNK, picked per call by density), so
-    the LAST row's final chunk can overrun its row end by up to
-    MAX_CHUNK - LANE_ALIGN lanes; the capacity carries that extra slack
-    (plus MAX_CHUNK alignment) so no DMA ever reads out of bounds at any
-    selectable chunk size. (Without the slack this faulted the TPU at
-    operating points where the row pads landed flush against the
-    capacity, e.g. 20k splats at the default budget.)"""
-    from gsvc_tpu.ops.rasterize_pallas import MAX_CHUNK
-
+    """Static lane capacity S of the sorted layout for a given budget: the
+    budget plus each tile row's worst-case alignment padding, rounded up
+    to LANE_ALIGN."""
     tb_y = int(tile_bounds[1])
-    align = max(LANE_ALIGN, MAX_CHUNK)
-    cap = max_intersects + (LANE_ALIGN - 1) * tb_y + (align - LANE_ALIGN)
-    return ((cap + align - 1) // align) * align
+    cap = max_intersects + (LANE_ALIGN - 1) * tb_y
+    return ((cap + LANE_ALIGN - 1) // LANE_ALIGN) * LANE_ALIGN
 
 
 def bin_gaussians(
@@ -158,7 +102,7 @@ def bin_gaussians(
     tb_x, tb_y = int(tile_bounds[0]), int(tile_bounds[1])
     num_tiles = tb_x * tb_y
     # Packing limits: the forward fill packs (gid << 8 | field) with 8-bit
-    # tmin_x/tmin_y/bbox_w fields, and the fast sort key packs tile ids in
+    # tmin_x/tmin_y/bbox_w fields, and the sort key packs tile ids in
     # 16 bits. Fail loudly instead of silently mis-binning oversized grids
     # (tb <= 255 covers past-4K video; 8K needs a wider packing).
     if tb_x > 255 or tb_y > 255:
@@ -202,84 +146,47 @@ def bin_gaussians(
     gid = jnp.arange(n, dtype=jnp.int32)
     scatter_idx = jnp.where(kept, starts_g, max_intersects)  # drop the rest
 
-    def seed_fill(payloads):
-        """ONE row-scatter for all seed rows: XLA scatter is a serial
-        ~7-cycles-per-UPDATE loop on TPU, so scattering a [R] column per
-        index costs barely more than a scalar per index (measured: 2
-        separate [I] scatters 0.20 ms, one [2, I] row scatter 0.13 ms at
-        N=10k on v5e)."""
-        p = jnp.stack([x.astype(jnp.int32) for x in payloads])
-        return (
-            jnp.full((len(payloads), max_intersects), -1, jnp.int32)
-            .at[:, scatter_idx]
-            .max(p, mode="drop")
-        )
-
-    # Packed seed rows (each monotone in gaussian id so the forward-fill
-    # running max stays owned by the newest gaussian): 2 rows when
-    # (g+1)<<16 fits int32 (n <= 32767, covers every GSVC operating
-    # point), 3 rows up to the 2^23 id limit.
-    # starts_g < 2^23 (max_intersects budget) so (start << 8) | bbox_w fits.
-    fast_key_path = n < 0xFFFF and num_tiles < 0x10000 and _use_pallas_fill()
-    if fast_key_path and n <= 32767:
-        seeds = seed_fill(
-            [
-                (starts_g << 8) | bbox_w,
-                ((gid + 1) << 16) | (tmin_x << 8) | tmin_y,
-            ]
-        )
-    elif fast_key_path:
-        seeds = seed_fill(
-            [
-                (starts_g << 8) | bbox_w,
-                (gid << 8) | tmin_x,
-                (gid << 8) | tmin_y,
-            ]
-        )
-    else:
-        seeds = seed_fill(
-            [
-                starts_g,
-                (gid << 8) | bbox_w,
-                (gid << 8) | tmin_x,
-                (gid << 8) | tmin_y,
-            ]
-        )
-    if fast_key_path:
-        # Single-pass Pallas fill+decode: XLA's associative_scan makes
-        # log2(I) full HBM passes (+0.83 ms at I=160k on v5e); the
-        # sequential-grid kernel does it in one (ops/fill_pallas.py).
-        from gsvc_tpu.ops.fill_pallas import fill_decode_keys
-
-        keys = fill_decode_keys(seeds, total_kept, tb_x, num_tiles, n)
-        tile_id = gauss_id = None
-    else:
-        i = jnp.arange(max_intersects, dtype=jnp.int32)
-        filled = jax.lax.associative_scan(jnp.maximum, seeds, axis=1)
-        start_of_g = filled[0]
-        g = filled[1] >> 8
-        valid = (i < total_kept) & (g >= 0)
-        g_safe = jnp.maximum(g, 0)
-        slot = i - start_of_g  # rank of this intersection inside g's bbox
-        bw = jnp.maximum(filled[1] & 0xFF, 1)
-        tx0 = filled[2] & 0xFF
-        ty0 = filled[3] & 0xFF
-        # row-major decode over the bbox, matching forward.cu:118-133. Exact
-        # f32 div: slot < bbox_w*bbox_h <= num_tiles < 2^24, and the +0.5
-        # bias keeps floor() exact for divisible values.
-        q = jnp.floor(
-            (slot.astype(jnp.float32) + 0.5) / bw.astype(jnp.float32)
-        ).astype(jnp.int32)
-        ty = ty0 + q
-        tx = tx0 + (slot - q * bw)
-        tile_id = jnp.where(valid, ty * tb_x + tx, num_tiles).astype(jnp.int32)
-        gauss_id = jnp.where(valid, g_safe, n).astype(jnp.int32)
+    # One row-scatter for all seed rows (each monotone in gaussian id so
+    # the forward-fill running max stays owned by the newest gaussian).
+    seeds = jnp.stack(
+        [
+            starts_g,
+            (gid << 8) | bbox_w,
+            (gid << 8) | tmin_x,
+            (gid << 8) | tmin_y,
+        ]
+    )
+    seeds = (
+        jnp.full((4, max_intersects), -1, jnp.int32)
+        .at[:, scatter_idx]
+        .max(seeds, mode="drop")
+    )
+    i = jnp.arange(max_intersects, dtype=jnp.int32)
+    filled = jax.lax.associative_scan(jnp.maximum, seeds, axis=1)
+    start_of_g = filled[0]
+    g = filled[1] >> 8
+    valid = (i < total_kept) & (g >= 0)
+    g_safe = jnp.maximum(g, 0)
+    slot = i - start_of_g  # rank of this intersection inside g's bbox
+    bw = jnp.maximum(filled[1] & 0xFF, 1)
+    tx0 = filled[2] & 0xFF
+    ty0 = filled[3] & 0xFF
+    # row-major decode over the bbox, matching forward.cu:118-133. Exact
+    # f32 div: slot < bbox_w*bbox_h <= num_tiles < 2^24, and the +0.5
+    # bias keeps floor() exact for divisible values.
+    q = jnp.floor(
+        (slot.astype(jnp.float32) + 0.5) / bw.astype(jnp.float32)
+    ).astype(jnp.int32)
+    ty = ty0 + q
+    tx = tx0 + (slot - q * bw)
+    tile_id = jnp.where(valid, ty * tb_x + tx, num_tiles).astype(jnp.int32)
+    gauss_id = jnp.where(valid, g_safe, n).astype(jnp.int32)
 
     # Per-tile counts WITHOUT a scatter: a gaussian's tile footprint is a
     # separable row x column indicator, so counts[r, c] =
-    # sum_g rowind[g, r] * colind[g, c] — one tiny [R, N] x [N, C] MXU
-    # matmul (a 160k-update scatter-add histogram measured ~1.9 ms on v5e;
-    # this is microseconds). Counts <= N stay exact in f32.
+    # sum_g rowind[g, r] * colind[g, c] — one small [R, N] x [N, C] matmul
+    # instead of a scatter-add histogram over every intersection. Counts
+    # <= N stay exact in f32.
     rr = jnp.arange(tb_y, dtype=jnp.int32)
     cc = jnp.arange(tb_x, dtype=jnp.int32)
     rowind = (
@@ -314,45 +221,17 @@ def bin_gaussians(
 
     # LANE_ALIGN-aligned static capacity.
     s_cap = static_capacity(max_intersects, tile_bounds)
-    if fast_key_path:
-        from gsvc_tpu.ops.fill_pallas import rank_cap_decode
-
-        pad_keys = (pad_tile.astype(jnp.uint32) << 16) | jnp.uint32(0xFFFF)
-        skey = jax.lax.sort(
-            jnp.concatenate([keys, pad_keys]), is_stable=False
-        )
-        tail = s_cap - skey.shape[0]
-        skey = jnp.pad(
-            skey, (0, tail), constant_values=(num_tiles << 16) | 0xFFFF
-        )
-        # rank/cap as a single-pass Pallas scan over the sorted keys
-        sorted_tile_ids, sorted_gauss_ids = rank_cap_decode(skey, cap, n)
-    else:
-        sorted_tile_ids, sorted_gauss_ids = _sort_by_tile_gauss(
-            jnp.concatenate([tile_id, pad_tile]),
-            jnp.concatenate([gauss_id, pad_gauss]),
-            n,
-            num_tiles,
-        )
-        tail = s_cap - sorted_tile_ids.shape[0]
-        sorted_tile_ids = jnp.pad(
-            sorted_tile_ids, (0, tail), constant_values=num_tiles
-        )
-        sorted_gauss_ids = jnp.pad(
-            sorted_gauss_ids, (0, tail), constant_values=n
-        )
-
-    if fast_key_path:
-        sorted_keys = skey
-    else:
-        sorted_keys = None
-    # Exclusive prefix of kept per-gaussian counts: the gauss-sorted slot
-    # spans for the backward's segmented gradient reduction.
-    kept_nth = jnp.where(kept, nth, 0)
-    gauss_slot_start = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(kept_nth, dtype=jnp.int32)]
+    sorted_tile_ids, sorted_gauss_ids = _sort_by_tile_gauss(
+        jnp.concatenate([tile_id, pad_tile]),
+        jnp.concatenate([gauss_id, pad_gauss]),
+        n,
+        num_tiles,
     )
-    bbox_pack = (bbox_w << 16) | (tmin_y << 8) | tmin_x
+    tail = s_cap - sorted_tile_ids.shape[0]
+    sorted_tile_ids = jnp.pad(
+        sorted_tile_ids, (0, tail), constant_values=num_tiles
+    )
+    sorted_gauss_ids = jnp.pad(sorted_gauss_ids, (0, tail), constant_values=n)
 
     # Aligned superblock starts and exact per-tile starts.
     row_lanes = row_counts + p_need  # LANE_ALIGN multiples
@@ -364,24 +243,19 @@ def bin_gaussians(
     row_first = cum_t.reshape(tb_y, tb_x)[:, 0]
     tile_bin_start = row_lane_start[row_of_t] + (cum_t - row_first[row_of_t])
 
-    if not fast_key_path:
-        # Per-lane rank within its tile run — run starts forward-filled
-        # with an associative scan — applies the per-tile cap exactly like
-        # the reference kernel's first-256 batch (forward.cu:613):
-        # beyond-cap lanes become sentinels. (The fast path applied the
-        # cap inside rank_cap_decode.)
-        lane = jnp.arange(s_cap, dtype=jnp.int32)
-        change = jnp.concatenate(
-            [
-                jnp.ones(1, dtype=bool),
-                sorted_tile_ids[1:] != sorted_tile_ids[:-1],
-            ]
-        )
-        run_start = jax.lax.associative_scan(
-            jnp.maximum, jnp.where(change, lane, 0)
-        )
-        rank = lane - run_start
-        sorted_gauss_ids = jnp.where(rank < cap, sorted_gauss_ids, n)
+    # Per-lane rank within its tile run — run starts forward-filled with an
+    # associative scan — applies the per-tile cap exactly like the
+    # reference kernel's first-256 batch (forward.cu:613): beyond-cap lanes
+    # become sentinels.
+    lane = jnp.arange(s_cap, dtype=jnp.int32)
+    change = jnp.concatenate(
+        [jnp.ones(1, dtype=bool), sorted_tile_ids[1:] != sorted_tile_ids[:-1]]
+    )
+    run_start = jax.lax.associative_scan(
+        jnp.maximum, jnp.where(change, lane, 0)
+    )
+    rank = lane - run_start
+    sorted_gauss_ids = jnp.where(rank < cap, sorted_gauss_ids, n)
 
     overflow = total - total_kept
     return BinnedSplats(
@@ -392,9 +266,6 @@ def bin_gaussians(
         tile_counts=tile_counts,
         num_intersects=total_kept,
         overflow=overflow,
-        sorted_keys=sorted_keys,
-        gauss_slot_start=gauss_slot_start,
-        bbox_pack=bbox_pack,
     )
 
 

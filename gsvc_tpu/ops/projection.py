@@ -1,13 +1,13 @@
 """2D Gaussian projection: (NDC means, Cholesky L) -> pixel-space footprint.
 
-TPU-native equivalent of the reference CUDA kernels
+JAX equivalent of the reference CUDA kernels
 `project_gaussians_2d_forward_kernel` (gsplat/gsplat/cuda/csrc/foward2d.cu:12)
 and `project_gaussians_2d_backward_kernel` (backward2d.cu:8), plus the
 `compute_cov2d_bounds` device helper (helpers.cuh:45-68) and the tile-bbox
 helper `get_tile_bbox` (helpers.cuh:11-43).
 
 This op is embarrassingly parallel elementwise math over N splats — exactly
-what XLA fuses into a handful of VPU loops — so there is no Pallas kernel
+what XLA fuses into a handful of elementwise kernels — so there is no Pallas kernel
 here on purpose. Gradients come from JAX autodiff, which matches the
 reference's hand-written VJP: the reference composes a half-weighted
 off-diagonal conic grad (backward.cu:835) with a symmetrized conic->cov
@@ -103,7 +103,7 @@ def project_gaussians_2d(
       means2d: [N,2] NDC means in [-1,1]^2.
       L_elements: [N,3] Cholesky elements (l11, l21, l22), bound already added.
       alive: optional [N] bool; dead splats get radius 0 / 0 tiles hit so they
-        vanish from binning and rasterization (TPU static-shape pruning).
+        vanish from binning and rasterization (static-shape pruning).
 
     Returns:
       xys [N,2] pixel centers, depths [N] (all zero), radii [N] int32,

@@ -1,6 +1,6 @@
 """3D Gaussian EWA projection (the inherited 3DGS pipeline).
 
-TPU-native equivalent of the reference CUDA kernels
+JAX equivalent of the reference CUDA kernels
 `project_gaussians_forward_kernel` (gsplat/gsplat/cuda/csrc/forward.cu:12),
 `project_gaussians_backward_kernel` (backward.cu:1159), and the device
 helpers `scale_rot_to_cov3d` (forward.cu:902), `project_cov3d_ewa`
@@ -9,9 +9,8 @@ helpers `scale_rot_to_cov3d` (forward.cu:902), `project_cov3d_ewa`
 Part of SURVEY.md §2 #11 — exercised by tests only in the reference, exported
 here for API parity.
 
-TPU-first design: all of this is elementwise/small-matrix math over N
-gaussians — batched 3x3 matmuls land on the MXU and the rest fuses into VPU
-loops — so there is no Pallas kernel and no hand-written VJP; gradients come
+Design: all of this is elementwise/small-matrix math over N gaussians
+that XLA fuses as it stands — so there is no Pallas kernel and no hand-written VJP; gradients come
 from autodiff through the same formulas the reference differentiates by hand
 (backward.cu:1226 `project_cov3d_ewa_vjp`, :1308 `scale_rot_to_cov3d_vjp`).
 Invalid gaussians (behind the near plane, degenerate covariance, empty tile

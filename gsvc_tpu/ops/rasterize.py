@@ -6,17 +6,18 @@ but runs binning + rendering fully on-device with static shapes (no
 `.item()` host sync — compare gsplat/gsplat/utils.py:117).
 
 Backends:
-- "pallas": Pallas TPU kernels (ops/rasterize_pallas.py) — the fast path.
+- "tile": the per-tile Pallas/Triton kernel (ops/rasterize_tile.py) — the
+  GPU path.
 - "binned": plain-XLA tiled gather/einsum (ops/rasterize_binned.py) — runs
   anywhere, same semantics.
 - "dense": O(N*pixels) oracle (ops/rasterize_dense.py) — tests only.
-- "auto": pallas on TPU, binned elsewhere.
+- "auto": whatever `gsvc_tpu.platform.rasterizer_backend` picks for the
+  default device.
 """
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -26,42 +27,6 @@ from gsvc_tpu.ops.binning import bin_gaussians, default_max_intersects
 # Per-tile gaussian cap. The reference 3-channel sum kernel de-facto renders
 # only the first BLOCK_SIZE=256 binned gaussians per tile (forward.cu:613).
 TILE_CAP = 256
-
-
-def image_to_rows(
-    img: jax.Array, img_height: int, img_width: int,
-    BLOCK_H: int = 16, BLOCK_W: int = 16,
-) -> jax.Array:
-    """Tile a [H, W, 3] image into the layout='rows' block layout (for
-    targets/masks of tile-space training losses)."""
-    from gsvc_tpu.ops.rasterize_pallas import _image_to_vrows, _round8
-
-    tb_x = (img_width + BLOCK_W - 1) // BLOCK_W
-    tb_y = (img_height + BLOCK_H - 1) // BLOCK_H
-    return _image_to_vrows(
-        img, tb_y, _round8(3 * tb_x), tb_x, BLOCK_W, BLOCK_H
-    )
-
-
-def rows_to_image(
-    rows: jax.Array, img_height: int, img_width: int,
-    BLOCK_H: int = 16, BLOCK_W: int = 16,
-) -> jax.Array:
-    """Inverse of the layout='rows' output: blocks -> [H, W, 3] image."""
-    from gsvc_tpu.ops.rasterize_pallas import _rows_to_image
-
-    tb_x = (img_width + BLOCK_W - 1) // BLOCK_W
-    tb_y = (img_height + BLOCK_H - 1) // BLOCK_H
-    return _rows_to_image(
-        rows, tb_y, tb_x, BLOCK_W, BLOCK_H, img_height, img_width
-    )
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
 
 
 def rasterize_gaussians_sum(
@@ -81,18 +46,16 @@ def rasterize_gaussians_sum(
     backend: str = "auto",
     max_intersects: Optional[int] = None,
     tile_rows=None,
-    layout: str = "image",
+    interpret: bool = False,
 ):
     """Differentiable accumulation rasterizer. Returns [H, W, C] (+alpha).
 
     `depths` is accepted for API parity and ignored — the sum render is
     order-independent (reference depths are constant 0, foward2d.cu:67).
 
-    layout="rows" (pallas backend only) returns the kernel's native
-    [tb_y * round8(3*tb_x), BLOCK_H*BLOCK_W] tile-row blocks instead of an
-    image — pointwise training losses consume it directly and skip the
-    untile transpose in both passes (see ops/rasterize_pallas.py). Tile a
-    [H, W, 3] target into the same layout with `image_to_rows`.
+    tile_rows=(row0, num_rows) renders only that global tile-row span
+    ([num_rows * BLOCK_H, W, C]; image sharding). interpret=True runs the
+    tile kernel in the Pallas interpreter (CPU tests).
 
     Quirks kept for parity:
     - when there are zero intersections, the image is `background` everywhere
@@ -115,15 +78,15 @@ def rasterize_gaussians_sum(
         )
 
     if backend == "auto":
-        backend = "pallas" if _on_tpu() else "binned"
-    # The Pallas kernel packs exactly 3 color channels (like the reference's
+        from gsvc_tpu.platform import rasterizer_backend
+
+        backend = rasterizer_backend()
+    # The tile kernel renders exactly 3 color channels (like the reference's
     # specialized 3-channel kernel, forward.cu:512); other channel counts
     # dispatch to the binned path — the analog of the reference wrapper
     # routing C != 3 to nd_rasterize_forward_sum (rasterize_sum.py:147-150).
-    if backend == "pallas" and colors.shape[-1] != 3:
+    if backend == "tile" and colors.shape[-1] != 3:
         backend = "binned"
-    if layout != "image" and backend != "pallas":
-        raise ValueError("layout='rows' requires the pallas backend")
 
     if backend == "dense":
         if tile_rows is not None:
@@ -141,13 +104,13 @@ def rasterize_gaussians_sum(
             max_intersects, cap=TILE_CAP,
         )
         total = binned.num_intersects
-        if backend == "pallas":
-            from gsvc_tpu.ops.rasterize_pallas import rasterize_pallas
+        if backend == "tile":
+            from gsvc_tpu.ops.rasterize_tile import rasterize_tile
 
-            img = rasterize_pallas(
+            img = rasterize_tile(
                 binned, xys, conics, colors, opacity,
                 img_height, img_width, tile_bounds, BLOCK_W, BLOCK_H, TILE_CAP,
-                tile_rows, layout=layout,
+                tile_rows=tile_rows, interpret=interpret,
             )
         elif backend == "binned":
             from gsvc_tpu.ops.rasterize_binned import rasterize_binned
@@ -160,44 +123,10 @@ def rasterize_gaussians_sum(
         else:
             raise ValueError(f"unknown backend {backend!r}")
 
-    if layout == "rows":
-        # background per tile-row block row (t, c) is background[c].
-        # Arithmetic select, NOT lax.cond: a conditional over the [24480,
-        # 256] rows buffer materializes a 0.15 ms identity copy per train
-        # step (profiled via scripts/profile_xplane.py); the scalar-flag
-        # blend fuses into the consumer's elementwise pass instead.
-        rowc = jnp.arange(img.shape[0], dtype=jnp.int32) % 3
-        bg_rows = background[rowc][:, None].astype(img.dtype)
-        live = (total >= 1).astype(img.dtype)
-        img = img * live + bg_rows * (1.0 - live)
-        if return_alpha:
-            raise ValueError("return_alpha unsupported for layout='rows'")
-        return img
-
-    if layout == "chw":
-        img = jax.lax.optimization_barrier(img)
-        # arithmetic select (see the rows branch): a lax.cond over the
-        # [3, H, W] image costs a ~0.08 ms identity copy per call
-        live = (total >= 1).astype(img.dtype)
-        img = img * live + background[:, None, None].astype(img.dtype) * (
-            1.0 - live
-        )
-        if return_alpha:
-            return img, jnp.zeros(img.shape[1:], img.dtype)
-        return img
-
-    # Fusion firewall: without it XLA fuses the caller's elementwise ops
-    # (the model's clip, the loss) INTO the untile transpose, turning a
-    # fast copy kernel into a strided loop fusion — measured +5.5 ms at
-    # 1080p on v5e (scripts/profile_bwd_chain.py probe). The barrier also
-    # shields the transpose's backward the same way.
-    img = jax.lax.optimization_barrier(img)
-
     # zero-intersect fast path (rasterize_sum.py:121-129), as an
-    # arithmetic select: a lax.cond over the whole image materializes an
-    # identity copy through the conditional (~0.08 ms at 1080p, profiled
-    # on the planar path); the scalar-flag blend fuses into the caller's
-    # clip/loss instead.
+    # arithmetic select: a lax.cond over the whole image would materialize
+    # an identity copy through the conditional; the scalar-flag blend fuses
+    # into the caller's clip/loss instead.
     live = (total >= 1).astype(img.dtype)
     img = img * live + background[None, None, :].astype(img.dtype) * (
         1.0 - live

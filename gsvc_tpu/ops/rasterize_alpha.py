@@ -1,6 +1,6 @@
 """Depth-sorted alpha-compositing rasterizer (the inherited 3DGS pipeline).
 
-TPU-native equivalent of the reference CUDA kernels `rasterize_forward`
+JAX equivalent of the reference CUDA kernels `rasterize_forward`
 (gsplat/gsplat/cuda/csrc/forward.cu:252-374, shared-memory batched
 front-to-back compositing with early termination), `nd_rasterize_forward`
 (forward.cu:168, arbitrary channel count), and their backwards
@@ -8,13 +8,13 @@ front-to-back compositing with early termination), `nd_rasterize_forward`
 Part of SURVEY.md §2 #11/#14 — exercised by tests only in the reference,
 exported here for API parity and to complete the op inventory.
 
-TPU-first design: instead of a per-pixel sequential loop with early exit
+Design: instead of a per-pixel sequential loop with early exit
 (data-dependent control flow XLA can't tile), splats are globally sorted by
 depth once (XLA sort — depth order per pixel equals global depth order since
 the reference's sort key is (tile, depth) and compositing is per-pixel), then
 a `lax.scan` over fixed-size splat chunks carries the per-pixel transmittance
-T. Within a chunk everything is dense [chunk, pixels] VPU math plus an
-exclusive cumulative product; the chunk contribution is one MXU matmul.
+T. Within a chunk everything is dense [chunk, pixels] elementwise math plus
+an exclusive cumulative product; the chunk contribution is one matmul.
 Early termination becomes a mask (T <= 1e-4 freezes the pixel,
 forward.cu:295-300) — same result, compiler-friendly shape. Gradients come
 from autodiff through the scan rather than the reference's hand-derived
@@ -145,7 +145,7 @@ def rasterize_gaussians_alpha(
         # transmittance wherever live holds.
         live = (~dead)[None, :] & (T_next > T_EPS)
         w = jnp.where(live, a * T_before, 0.0)  # [chunk, pix]
-        out = out + w.T @ ccol  # [pix, C] MXU
+        out = out + w.T @ ccol  # [pix, C]
         T = T * jnp.exp(jnp.sum(jnp.where(live, log1m, 0.0), axis=0))
         dead = dead | (T_next[-1] <= T_EPS)
         return (out, T, dead), None

@@ -1,11 +1,11 @@
 """Binned sum-rasterizer in plain XLA (gather + einsum over tile chunks).
 
-The portable fast path: same CSR binning and per-tile-cap semantics as the
-Pallas kernel (ops/rasterize_pallas.py), expressed as dense [chunk, K, pixels]
-math that XLA vectorizes on any backend. Used as:
-- the CPU/interpret fallback for the public rasterize API,
-- a second independent implementation the Pallas kernel is tested against
-  (alongside the O(N*P) oracle in ops/rasterize_dense.py).
+The portable path: same CSR binning and per-tile-cap semantics as the
+per-tile GPU kernel (ops/rasterize_tile.py), expressed as dense
+[chunk, K, pixels] math that XLA vectorizes on any backend. Used as:
+- the CPU path of the public rasterize API, and its path for C != 3,
+- a second independent implementation the kernel is tested against on
+  the card (alongside the O(N*P) oracle in ops/rasterize_dense.py).
 
 Semantics mirror the reference CUDA kernel `rasterize_forward_sum`
 (gsplat/gsplat/cuda/csrc/forward.cu:512-627): per tile only the first

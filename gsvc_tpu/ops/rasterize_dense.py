@@ -5,7 +5,7 @@ Pure-jnp mirror of the semantics of the reference CUDA kernel
 backward `rasterize_backward_sum_kernel` (backward.cu:696-862). Plays the
 role the reference's `_torch_impl.py` plays for its CUDA kernels: an
 hardware-independent oracle every fast kernel is tested against. It runs on
-CPU, so kernel-vs-oracle and gradient tests need no TPU.
+CPU, so kernel-vs-oracle and gradient tests need no accelerator.
 
 Reference semantics captured here:
 - contribution: alpha = min(1, opacity * exp(-sigma)) with

@@ -1,13 +1,13 @@
 """Real spherical-harmonics color evaluation (degrees 0-4).
 
-TPU-native equivalent of the reference SH CUDA kernels
+JAX equivalent of the reference SH CUDA kernels
 (gsplat/gsplat/cuda/csrc/sh.cuh:6-254: constant tables, `sh_coeffs_to_color`,
 `compute_sh_forward_kernel`/`compute_sh_backward_kernel`) and their Python
 wrapper `spherical_harmonics` (gsplat/gsplat/sh.py:36). Part of the inherited
 3D gaussian pipeline (SURVEY.md §2 #18) — unused by the GSVC video drivers
 but exported for API parity.
 
-Elementwise polynomial math over N points: XLA fuses it into VPU loops, and
+Elementwise polynomial math over N points: XLA fuses it into elementwise kernels, and
 the backward comes from autodiff instead of the reference's hand-written
 kernel — the gradients agree because both are exact derivatives of the same
 polynomial.

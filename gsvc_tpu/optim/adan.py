@@ -4,7 +4,7 @@ Functional equivalent of the reference's vendored torch Adan
 (optimizer.py:39-235, update math at :238-293), which is the only optimizer
 GSVC uses (`opt_type="adan"`, train_video_Represent.py:55). The
 single/multi-tensor/fused-CUDA triplication of the reference collapses to
-one pytree-mapped update that XLA fuses on TPU.
+one pytree-mapped update that XLA fuses.
 
 Update rule per step t (reference _single_tensor_adan, optimizer.py:258-293):
     g       <- g * clip                      (global-norm clip factor)

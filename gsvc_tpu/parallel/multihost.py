@@ -10,8 +10,8 @@ chains — but the chains themselves (GOPs: [K_i, K_{i+1})) are INDEPENDENT:
 each starts from a fresh random init at its K-frame, and the per-frame RNG
 seed depends only on (seed, frame_num) (drivers/represent.py). Sharding
 GOPs across hosts therefore reproduces the sequential run's artifacts
-bit-for-bit, with zero inter-host communication during training — DCN
-(or the shared filesystem) is touched only for the K-frame list, the
+bit-for-bit, with zero inter-host communication during training — the
+network (or the shared filesystem) is touched only for the K-frame list, the
 end-of-run barrier, and checkpoint merging.
 
 Components:
@@ -58,6 +58,9 @@ def initialize(
         return False
     import jax
 
+    # One process per card: the launcher pins each process to its GPU with
+    # CUDA_VISIBLE_DEVICES (scripts/sh_train_multihost.sh), since a JAX
+    # process otherwise claims every visible card.
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,

@@ -2,13 +2,13 @@
 
 The reference is strictly single-GPU (`cuda:0`, train_video_Represent.py:36)
 with SLURM-job sweep parallelism only (SURVEY.md §2 parallelism table). This
-module adds the TPU-native distributed layer (SURVEY.md §7.2 stage 7):
+module adds a distributed layer (SURVEY.md §7.2 stage 7):
 
 - **tile axis (SP — image-space parallelism)**: the image's tile rows are
   sharded across chips. Every chip holds the full (small) splat set,
   projects once, bins only its local tile rows against global coordinates,
   rasterizes its image shard, and computes the local loss term. Per-splat
-  parameter gradients are `psum`'d over ICI — the collective equivalent of
+  parameter gradients are `psum`'d across the devices — the collective equivalent of
   the reference backward's atomicAdd into shared per-gaussian slots
   (backward.cu:843-858).
 - **frame axis (DP — GOP parallelism)**: K-frame chains are independent
@@ -26,7 +26,9 @@ quirk, overflow check) under shard_map, not a simplified demo loss. The
 representation driver reaches it via `--tile_shards N`
 (drivers/represent.py).
 
-Built on jax.sharding.Mesh + shard_map; collectives ride ICI via XLA.
+Built on jax.sharding.Mesh + shard_map; XLA lowers the collectives (NCCL
+over NVLink on a multi-GPU host). Every device reaches every other at the
+same rate there, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -45,13 +47,10 @@ from gsvc_tpu.models.represent import (
     FitResult,
     TileShard,
     TrainState,
-    _use_rows_loss,
-    make_rows_target,
     make_train_step,
     render_frame,
     shard_padded_height,
     shard_rows_per,
-    shard_valid_h,
 )
 
 
@@ -77,7 +76,7 @@ def _pad_gt_rows(gt: jax.Array, cfg: FrameConfig, n_tile: int) -> jax.Array:
     `shard_padded_height` so the global gt splits into equal whole-tile-row
     shards at ANY resolution (e.g. 1080 -> 1088 rows for 2/4 shards, 1152
     for 8). The padding rows render empty and are masked out of the loss
-    (shard_valid_h / make_rows_target), so results match the single-device
+    (shard_valid_h), so results match the single-device
     fit, which slices img[: cfg.H]."""
     h_pad = shard_padded_height(cfg, n_tile)
     if gt.shape[-3] == h_pad:
@@ -107,20 +106,8 @@ def make_sharded_train_step(
     rows_per = shard_rows_per(cfg, n_tile)
     shard = TileShard("tile", n_tile)
     step = make_train_step(cfg, lambda_value, shard=shard)
-    use_rows = _use_rows_loss(cfg)
-
     def per_device(states_b: TrainState, gt_b: jax.Array) -> TrainState:
-        row0 = jax.lax.axis_index("tile") * rows_per
-        valid_h = shard_valid_h(cfg, shard, row0)
-
-        def one_frame(state: TrainState, gt_shard: jax.Array) -> TrainState:
-            rows_target = (
-                make_rows_target(gt_shard, cfg, valid_h) if use_rows
-                else None
-            )
-            return step(state, gt_shard, rows_target)
-
-        return jax.vmap(one_frame)(states_b, gt_b)
+        return jax.vmap(step)(states_b, gt_b)
 
     sharded = jax.shard_map(
         per_device,
@@ -154,20 +141,14 @@ def fit_frame_sharded(
     rows_per = shard_rows_per(cfg, n_tile)
     shard = TileShard("tile", n_tile)
     step = make_train_step(cfg, lambda_value, shard=shard)
-    use_rows = _use_rows_loss(cfg)
-
     def local_fit(state: TrainState, gt_shard: jax.Array):
         row0 = jax.lax.axis_index("tile") * rows_per
-        valid_h = shard_valid_h(cfg, shard, row0)
-        rows_target = (
-            make_rows_target(gt_shard, cfg, valid_h) if use_rows else None
-        )
 
         def cond(s: TrainState):
             return (s.it < cfg.iterations) & (~s.stop)
 
         def body(s: TrainState):
-            return step(s, gt_shard, rows_target)
+            return step(s, gt_shard)
 
         final = jax.lax.while_loop(cond, body, state)
         img_shard = render_frame(
@@ -197,20 +178,10 @@ def fit_compress_sharded(state, gt, cfg: FrameConfig, mesh: Mesh):
     from gsvc_tpu.models.compress import make_train_step_quantize
 
     n_tile = mesh.shape["tile"]
-    rows_per = shard_rows_per(cfg, n_tile)
-    shard = TileShard("tile", n_tile)
-    step = make_train_step_quantize(cfg, shard=shard)
-    use_rows = _use_rows_loss(cfg)
-
+    step = make_train_step_quantize(cfg, shard=TileShard("tile", n_tile))
     def local_fit(state, gt_shard):
-        row0 = jax.lax.axis_index("tile") * rows_per
-        valid_h = shard_valid_h(cfg, shard, row0)
-        rows_target = (
-            make_rows_target(gt_shard, cfg, valid_h) if use_rows else None
-        )
-
         def body(s, _):
-            return step(s, gt_shard, rows_target), None
+            return step(s, gt_shard), None
 
         final, _ = jax.lax.scan(body, state, None, length=cfg.iterations)
         return dataclasses.replace(

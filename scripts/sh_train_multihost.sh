@@ -10,15 +10,21 @@
 #   sbatch -N4 scripts/sh_train_multihost.sh <dataset.yuv> [extra args...]
 # (srun launches one task per node; SLURM_* vars drive the assignment.)
 #
-# Standalone / local multi-process (e.g. the CPU dryrun):
+# Standalone / local multi-process (one process per GPU of one host, or the
+# CPU dryrun):
 #   GSVC_NUM_PROCS=2 GSVC_COORDINATOR=127.0.0.1:9911 \
 #     GSVC_PROC_ID=0 scripts/sh_train_multihost.sh data.yuv ... &
 #   GSVC_NUM_PROCS=2 GSVC_COORDINATOR=127.0.0.1:9911 \
 #     GSVC_PROC_ID=1 scripts/sh_train_multihost.sh data.yuv ...
 #
 # GSVC_COORDINATOR enables jax.distributed.initialize (collective
-# barriers over DCN); without it the hosts rendezvous through
+# barriers over the network); without it the hosts rendezvous through
 # shared-filesystem markers — both paths are supported.
+#
+# One process per GPU: each process is pinned to one card with
+# CUDA_VISIBLE_DEVICES (default: its node-local rank), because a JAX
+# process otherwise claims every visible card and reserves most of its
+# memory. Several processes on one 4-GPU host therefore use GPUs 0..3.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -33,6 +39,7 @@ shift
 export GSVC_RUN_NONCE="${GSVC_RUN_NONCE:-${SLURM_JOB_ID:-}}"
 export GSVC_NUM_PROCS="${GSVC_NUM_PROCS:-${SLURM_NTASKS:-1}}"
 export GSVC_PROC_ID="${GSVC_PROC_ID:-${SLURM_PROCID:-0}}"
+export CUDA_VISIBLE_DEVICES="${CUDA_VISIBLE_DEVICES:-${SLURM_LOCALID:-$GSVC_PROC_ID}}"
 if [ -z "${GSVC_COORDINATOR:-}" ] && [ -n "${SLURM_JOB_NODELIST:-}" ]; then
     head_node="$(scontrol show hostnames "$SLURM_JOB_NODELIST" | head -n1)"
     export GSVC_COORDINATOR="${head_node}:9911"

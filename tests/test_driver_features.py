@@ -67,3 +67,17 @@ def test_step_timer_and_time_fn():
     f = jax.jit(lambda v: v * 2)
     dt = time_fn(f, jnp.ones((4,)), iters=3, warmup=1)
     assert dt > 0
+
+
+def test_loop_time_runs_a_chained_loop():
+    from gsvc_tpu.utils.profiling import loop_time
+
+    calls = []
+
+    def step(x):
+        calls.append(1)  # traced once: the loop is one jitted fori_loop
+        return x * 1.0 + 1.0
+
+    dt = loop_time(step, jnp.zeros(()), reps=5, outer=2)
+    assert dt > 0
+    assert len(calls) == 1

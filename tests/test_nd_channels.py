@@ -3,7 +3,8 @@
 The reference wrapper routes C != 3 to the `nd_rasterize_*_sum` kernels
 (gsplat/gsplat/rasterize_sum.py:147-150). Our public API routes C != 3 to the
 binned backend; this checks it against the dense oracle for several channel
-counts, including gradients.
+counts, including gradients. `backend="tile"` (3-channel only) must hand
+C != 3 to the binned path, never to the kernel.
 """
 
 import numpy as np
@@ -39,7 +40,7 @@ def test_nd_forward_matches_dense(c):
     means, L, colors, opacity = _scene(c=c)
     xys, d, radii, conics, nth = project_gaussians_2d(means, L, H, W, TB)
     img = rasterize_gaussians_sum(
-        xys, d, radii, conics, nth, colors, opacity, H, W, backend="pallas"
+        xys, d, radii, conics, nth, colors, opacity, H, W, backend="tile"
     )
     ref = rasterize_gaussians_sum_dense(
         xys, radii, conics, colors, opacity, H, W, cap=256

@@ -7,7 +7,7 @@ from gsvc_tpu.ops.projection import (
     project_gaussians_2d,
     project_gaussians_2d_scale_rot,
 )
-from tests.reference_impl import project_np
+from reference_impl import project_np
 
 
 def _random_inputs(n, seed=0):

@@ -7,7 +7,7 @@ from gsvc_tpu.ops.binning import bin_gaussians, default_max_intersects
 from gsvc_tpu.ops.projection import project_gaussians_2d
 from gsvc_tpu.ops.rasterize import rasterize_gaussians_sum
 from gsvc_tpu.ops.rasterize_dense import rasterize_gaussians_sum_dense
-from tests.reference_impl import project_np, rasterize_sum_np
+from reference_impl import project_np, rasterize_sum_np
 
 
 def _scene(n, H, W, seed=0, opacity_max=1.0):

@@ -187,43 +187,31 @@ def test_fit_frame_sharded_ragged_height():
     )
 
 
-def test_sharded_step_ragged_height_pallas():
-    """Ragged-height sharding through the PALLAS kernels (interpret mode):
-    exercises the kernel-side row clamp + edge-padded row_lane_start for
-    spans past the real grid."""
-    import gsvc_tpu.ops.rasterize_pallas as rp
-
-    rp.INTERPRET = True
-    try:
-        cfg, states, gt = _setup(2, H=88, W=48)
-        cfg = dataclasses.replace(cfg, backend="pallas")
-        mesh = shard_frames_mesh(2, 4, jax.devices())
-        step = make_sharded_train_step(mesh, cfg)
-        out_sh = step(states, gt)
-        out_ref = _single_device_step(cfg, states, gt)
-        _assert_states_close(out_sh, out_ref)
-    finally:
-        rp.INTERPRET = False
+def test_sharded_step_ragged_height_tile():
+    """Ragged-height sharding through the per-tile kernel (interpret
+    mode): a span past the real grid renders empty tiles (count 0) and the
+    loss masks the padding rows."""
+    cfg, states, gt = _setup(2, H=88, W=48)
+    cfg = dataclasses.replace(cfg, backend="tile", interpret=True)
+    mesh = shard_frames_mesh(2, 4, jax.devices())
+    step = make_sharded_train_step(mesh, cfg)
+    out_sh = step(states, gt)
+    out_ref = _single_device_step(cfg, states, gt)
+    _assert_states_close(out_sh, out_ref)
 
 
-def test_sharded_step_matches_single_device_pallas():
-    """Tile-sharded training with the PALLAS backend (interpret mode):
-    regression test for the uninitialized-vdata bug — per-shard backward
-    must mask lanes outside its tile-row span before the psum'd splat
-    reduction (ops/rasterize_pallas._reduce_lane_grads)."""
-    import gsvc_tpu.ops.rasterize_pallas as rp
-
-    rp.INTERPRET = True
-    try:
-        cfg, states, gt = _setup(2, H=64, W=48)
-        cfg = dataclasses.replace(cfg, backend="pallas")
-        mesh = shard_frames_mesh(2, 2, jax.devices()[:4])
-        step = make_sharded_train_step(mesh, cfg)
-        out_sh = step(states, gt)
-        out_ref = _single_device_step(cfg, states, gt)
-        _assert_states_close(out_sh, out_ref)
-    finally:
-        rp.INTERPRET = False
+def test_sharded_step_matches_single_device_tile():
+    """Tile-sharded training with the per-tile kernel (interpret mode):
+    each shard's backward writes only its span's lanes, so the lanes
+    outside it must be masked before the psum'd splat reduction
+    (ops/rasterize_tile._rasterize_bwd)."""
+    cfg, states, gt = _setup(2, H=64, W=48)
+    cfg = dataclasses.replace(cfg, backend="tile", interpret=True)
+    mesh = shard_frames_mesh(2, 2, jax.devices()[:4])
+    step = make_sharded_train_step(mesh, cfg)
+    out_sh = step(states, gt)
+    out_ref = _single_device_step(cfg, states, gt)
+    _assert_states_close(out_sh, out_ref)
 
 
 def test_fit_compress_sharded_matches_single_device():
@@ -354,7 +342,7 @@ def test_represent_sharded_grads_match_unsharded():
             jax.grad(
                 lambda t: _loss_and_psnr(
                     _from_trainable(t), state.alive, gt_shard, cfg, 0.0,
-                    None, shard,
+                    shard,
                 )[0]
             )(tr),
             "tile",
